@@ -1,4 +1,4 @@
-# TPU-native PDE solver — container image.
+# PDE solver — container image.
 # Replaces the reference's conda/FEniCS stack (reference Dockerfile:18-24)
 # with a plain pip install: the solve core is pure JAX + a small C++ host
 # library built at image build time.
@@ -11,18 +11,20 @@ RUN apt-get update && apt-get install -y --no-install-recommends \
 
 WORKDIR /app
 
-# CPU JAX by default; swap for the TPU wheel on TPU VMs:
-#   pip install "jax[tpu]" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
+# CPU JAX by default; for NVIDIA GPUs install the CUDA build instead:
+#   pip install "jax[cuda12]"
+# The solve path imports only jax, numpy and scipy; streamlit and requests
+# serve the web UI and the optional LLM.
 RUN pip install --no-cache-dir jax numpy scipy requests streamlit
 
 COPY pyproject.toml ./
-COPY pde_solver_tpu ./pde_solver_tpu
+COPY pde_solver ./pde_solver
 COPY native ./native
 COPY server.py app.py ./
 
 RUN pip install --no-cache-dir -e . && \
-    python -c "from pde_solver_tpu import native; assert native.available()" && \
-    python -c "from pde_solver_tpu import api; print('solvers importable')"
+    python -c "from pde_solver import native; assert native.available()" && \
+    python -c "from pde_solver import api; print('solvers importable')"
 
 EXPOSE 8501
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Chat front end for the TPU-native PDE solver.
+"""Chat front end for the PDE solver.
 
 * ``streamlit run app.py`` — web chat UI (feature parity with the reference
   app.py: chat history, example buttons, embedded interactive plots, download
@@ -30,7 +30,7 @@ EXAMPLES = [
 
 
 def _new_orchestrator():
-    from pde_solver_tpu.agents.orchestrator import MultiAgentOrchestrator
+    from pde_solver.agents.orchestrator import MultiAgentOrchestrator
     return MultiAgentOrchestrator()
 
 
@@ -38,8 +38,8 @@ def run_streamlit() -> None:
     import streamlit as st
     import streamlit.components.v1 as components
 
-    st.set_page_config(page_title="PDE Solver (TPU)", page_icon="🌡️", layout="wide")
-    st.title("PDE Solver — TPU-native")
+    st.set_page_config(page_title="PDE Solver", page_icon="🌡️", layout="wide")
+    st.title("PDE Solver")
 
     if "orchestrator" not in st.session_state:
         st.session_state.orchestrator = _new_orchestrator()
@@ -121,7 +121,7 @@ def main() -> None:
         except ImportError:
             print("streamlit not installed — using CLI chat "
                   "(python app.py --cli).\n")
-    from pde_solver_tpu.agents.orchestrator import run_chat_loop
+    from pde_solver.agents.orchestrator import run_chat_loop
     asyncio.run(run_chat_loop())
 
 

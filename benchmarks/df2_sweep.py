@@ -21,16 +21,16 @@ import os
 import sys
 import time
 
-sys.path.insert(0, ".")  # run from /root/repo (no PYTHONPATH on TPU)
+sys.path.insert(0, ".")  # run from the repository root
 
 
 def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from pde_solver_tpu.ops import multigrid as mg
-    from pde_solver_tpu.ops.linsolve import ScaledSystem
-    from pde_solver_tpu.utils import diskcache
+    from pde_solver.ops import multigrid as mg
+    from pde_solver.ops.linsolve import ScaledSystem
+    from pde_solver.utils import diskcache
 
     t0 = time.perf_counter()
     float(jnp.zeros(()))

@@ -51,8 +51,8 @@ def record(config, case, n_dofs, err, note):
 def config1_heat1d():
     """1D heat, 2 m rod, 256 nodes, 20→0 °C, backward Euler to steady."""
     import reference_fem as ref
-    from pde_solver_tpu import api
-    from pde_solver_tpu.fields import load_field
+    from pde_solver import api
+    from pde_solver.fields import load_field
 
     nx = 255  # 256 nodes
     res = api.solve_heat_1D(length=2.0, nx=nx, T_left=20.0, T_right=0.0,
@@ -93,7 +93,7 @@ def config1_heat1d():
 
 def config2_bar1d():
     """1D elasticity: 2 m aluminum bar, fixed-free, static."""
-    from pde_solver_tpu.models.elasticity import solve_bar_1d
+    from pde_solver.models.elasticity import solve_bar_1d
 
     E, A_, f = 70e9, 0.01, 500.0
     L = 2.0
@@ -118,10 +118,10 @@ def config2_bar1d():
     u = np.zeros(n)
     u[free] = spla.spsolve(K.tocsc()[free][:, free], b[free])
     order = np.argsort(verts[:, 0])
-    from pde_solver_tpu.mesh import interval_mesh
-    from pde_solver_tpu.ops import assembly
-    from pde_solver_tpu.ops.bc import DirichletBC
-    from pde_solver_tpu.ops.linsolve import solve_stencil_system
+    from pde_solver.mesh import interval_mesh
+    from pde_solver.ops import assembly
+    from pde_solver.ops.bc import DirichletBC
+    from pde_solver.ops.linsolve import solve_stencil_system
     mesh = interval_mesh(nx, 0.0, L)
     K2 = assembly.assemble_scalar_stencil(mesh, "stiffness")
     K2 = {o: (E * A_) * W for o, W in K2.items()}
@@ -135,9 +135,9 @@ def config2_bar1d():
 def config3_heat2d_cn():
     """2D heat 1×1 plate, 128² mesh, 0 °C boundary, 20 °C initial, CN."""
     import reference_fem as ref
-    from pde_solver_tpu.mesh import rectangle_mesh
-    from pde_solver_tpu.models import heat
-    from pde_solver_tpu.config import SolverConfig
+    from pde_solver.mesh import rectangle_mesh
+    from pde_solver.models import heat
+    from pde_solver.config import SolverConfig
 
     nc, dt, steps = 128, 0.001, 20
     mesh = rectangle_mesh(nc, nc, (0.0, 0.0), (1.0, 1.0))
@@ -176,11 +176,11 @@ def config3_heat2d_cn():
 def config4_elasticity2d():
     """2D plane-stress 1×1 steel plate, clamped left edge, body load."""
     import reference_fem as ref
-    from pde_solver_tpu.mesh import rectangle_mesh
-    from pde_solver_tpu.ops import assembly
-    from pde_solver_tpu.ops.bc import DirichletBC
-    from pde_solver_tpu.ops.linsolve import prepare_system, solve_stencil_system
-    from pde_solver_tpu.models.elasticity import lame_parameters
+    from pde_solver.mesh import rectangle_mesh
+    from pde_solver.ops import assembly
+    from pde_solver.ops.bc import DirichletBC
+    from pde_solver.ops.linsolve import prepare_system, solve_stencil_system
+    from pde_solver.models.elasticity import lame_parameters
 
     nc = 64
     E, nu = 210e9, 0.3
@@ -219,11 +219,11 @@ def config5_elasticity3d():
     mesh — the 2M-DOF perf run is bench.py's job, accuracy is checked here
     where a direct sparse solve is feasible on the 1-core host)."""
     import reference_fem as ref
-    from pde_solver_tpu.mesh import box_mesh
-    from pde_solver_tpu.ops import assembly
-    from pde_solver_tpu.ops.bc import DirichletBC
-    from pde_solver_tpu.ops.linsolve import solve_stencil_system
-    from pde_solver_tpu.models.elasticity import lame_parameters
+    from pde_solver.mesh import box_mesh
+    from pde_solver.ops import assembly
+    from pde_solver.ops.bc import DirichletBC
+    from pde_solver.ops.linsolve import solve_stencil_system
+    from pde_solver.models.elasticity import lame_parameters
 
     cells = (16, 8, 8)
     E, nu = 210e9, 0.3

@@ -92,10 +92,10 @@ def time_fresh_solves(A, b, reps=3, label=""):
 
 def heat_system(cells, extent, dt):
     """Scaled (M + dt K) backward-Euler step system, zero-Dirichlet."""
-    from pde_solver_tpu.mesh import box_mesh, interval_mesh, rectangle_mesh
-    from pde_solver_tpu.ops import assembly
-    from pde_solver_tpu.ops.bc import DirichletBC, all_boundary
-    from pde_solver_tpu.ops.linsolve import prepare_system
+    from pde_solver.mesh import box_mesh, interval_mesh, rectangle_mesh
+    from pde_solver.ops import assembly
+    from pde_solver.ops.bc import DirichletBC, all_boundary
+    from pde_solver.ops.linsolve import prepare_system
 
     if len(cells) == 1:
         mesh = interval_mesh(cells[0], 0.0, extent[0])
@@ -116,11 +116,11 @@ def heat_system(cells, extent, dt):
 
 
 def elasticity_system(cells, extent, E, nu, mode, body):
-    from pde_solver_tpu.mesh import box_mesh, rectangle_mesh
-    from pde_solver_tpu.models.elasticity import lame_parameters
-    from pde_solver_tpu.ops import assembly
-    from pde_solver_tpu.ops.bc import DirichletBC
-    from pde_solver_tpu.ops.linsolve import prepare_system
+    from pde_solver.mesh import box_mesh, rectangle_mesh
+    from pde_solver.models.elasticity import lame_parameters
+    from pde_solver.ops import assembly
+    from pde_solver.ops.bc import DirichletBC
+    from pde_solver.ops.linsolve import prepare_system
 
     d = len(cells)
     lam, mu = lame_parameters(E, nu, mode)

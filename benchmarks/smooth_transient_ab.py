@@ -1,12 +1,12 @@
 """A/B the V(2,1) vs V(2,2) MG cycle on transient MG-PCG stepping.
 
-The flagship df2 rounds measured V(2,1) 6% faster at equal iterations
-(BENCH_NOTES "smoothing sweep"); transient stepping solves a much
+The flagship df2 rounds use a V(2,1) cycle (benchmarks/df2_sweep.py);
+transient stepping solves a much
 better-conditioned operator (M + θΔtK) with ~6 warm-started iterations per
 step, where the per-iteration V-cycle cost dominates differently.  One
-process, in-process env toggle (the MG cache key includes routing knobs).
+process, in-process env toggle.
 
-Run on the real chip from /root/repo:
+Run on the GPU from the repository root:
     python benchmarks/smooth_transient_ab.py
 """
 
@@ -21,8 +21,8 @@ sys.path.insert(0, ".")
 def main():
     import jax.numpy as jnp
 
-    from pde_solver_tpu.mesh import box_mesh
-    from pde_solver_tpu.models import heat
+    from pde_solver.mesh import box_mesh
+    from pde_solver.models import heat
 
     t0 = time.perf_counter()
     float(jnp.zeros(()))
@@ -37,9 +37,9 @@ def main():
     results = {}
     for smooth in ("", "2,1"):
         if smooth:
-            os.environ["PDE_TPU_MG_SMOOTH"] = smooth
+            os.environ["PDE_MG_SMOOTH"] = smooth
         else:
-            os.environ.pop("PDE_TPU_MG_SMOOTH", None)
+            os.environ.pop("PDE_MG_SMOOTH", None)
         tag = f"V({smooth or '2,2'})"
         t0 = time.perf_counter()
         _, _, info = heat.solve_heat_problem(p)
@@ -57,7 +57,7 @@ def main():
                         "steps_per_s": num_steps / min(scans),
                         "iters": info["cg_iterations"],
                         "relres": info["relative_residual"]}
-    os.environ.pop("PDE_TPU_MG_SMOOTH", None)
+    os.environ.pop("PDE_MG_SMOOTH", None)
     print(json.dumps(results, indent=2), flush=True)
 
 

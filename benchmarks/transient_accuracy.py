@@ -1,7 +1,8 @@
 """Quantify the pure-float32 transient-scan trajectory error at scale.
 
-The TPU scan path forces mixed→f32 (no f64 inside device scans — see
-ops/timestepping.py and CLAUDE.md).  This study bounds what that costs:
+A pure-float32 scan (``precision="f32"``) keeps the state in f32; the
+default accelerator path (``"mixed"``) keeps it in f64 with f32
+corrections.  This study bounds what pure f32 costs:
 
   e_f32  = ‖u_f32(t) − u_f64(t)‖ / ‖u_f64(t)‖      (arithmetic error)
   e_dt   = ‖u_f64,dt(t) − u_f64,dt/2(t)‖ / ‖·‖      (time-discretization error)
@@ -9,7 +10,7 @@ ops/timestepping.py and CLAUDE.md).  This study bounds what that costs:
 The claim being validated: e_f32 ≪ e_dt at every snapshot, i.e. f32
 arithmetic is invisible under the backward-Euler discretization error.
 Run:  JAX_PLATFORMS=cpu python benchmarks/transient_accuracy.py [cells]
-(defaults to 40³ ≈ 69k DOF; results recorded in BENCH_NOTES.md).
+(defaults to 40³ ≈ 69k DOF).
 """
 
 import os
@@ -22,8 +23,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def trajectory(mesh, precision, dt, num_steps, tol):
-    from pde_solver_tpu.config import SolverConfig
-    from pde_solver_tpu.models import heat
+    from pde_solver.config import SolverConfig
+    from pde_solver.models import heat
 
     p = heat.HeatProblem(
         mesh=mesh, diffusivity=1.0,
@@ -47,7 +48,7 @@ def rel(a, b):
 
 def main():
     cells = int(sys.argv[1]) if len(sys.argv) > 1 else 40
-    from pde_solver_tpu.mesh import box_mesh
+    from pde_solver.mesh import box_mesh
 
     mesh = box_mesh(cells, cells, cells, (0, 0, 0), (1.0, 1.0, 1.0))
     num_steps, dt = 50, 0.002

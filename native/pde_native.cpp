@@ -1,6 +1,6 @@
-// pde_native — host-side native runtime for pde_solver_tpu.
+// pde_native — host-side native runtime for pde_solver.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas); this library owns the
+// The accelerator owns the compute path (JAX/XLA); this library owns the
 // host-side hot spots around it, replacing the roles the reference delegates
 // to DOLFIN/PETSc host code:
 //

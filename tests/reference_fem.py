@@ -1,6 +1,6 @@
 """Independent textbook FEM implementation used as a golden reference.
 
-This module deliberately shares no code with ``pde_solver_tpu``: it builds
+This module deliberately shares no code with ``pde_solver``: it builds
 explicit vertex/cell tables and assembles scipy sparse matrices with a
 per-element Python loop — the classic formulation (and the same
 discretization DOLFIN uses), so agreement with the vectorized stencil
@@ -135,28 +135,48 @@ def assemble_load(verts, cells, f=None, weight=None, degree=4):
     return b
 
 
+def _elasticity_element(X, lam, mu):
+    """Element stiffness [(d+1)·d, (d+1)·d] of one simplex with vertices X,
+    local dof = vertex*d + component."""
+    d = X.shape[1]
+    eye = np.eye(d)
+    J = (X[1:] - X[0]).T
+    detJ = np.linalg.det(J)
+    vol = abs(detJ) / math.factorial(d)
+    grads = np.vstack([-np.ones((1, d)), np.eye(d)]) @ np.linalg.inv(J)
+    Ke = np.zeros(((d + 1) * d, (d + 1) * d))
+    for a in range(d + 1):
+        for b_ in range(d + 1):
+            for i in range(d):
+                for j in range(d):
+                    # eps(phi_b e_j) : sigma(phi_a e_i)
+                    eps_b = 0.5 * (np.outer(grads[b_], eye[j]) + np.outer(eye[j], grads[b_]))
+                    eps_a = 0.5 * (np.outer(grads[a], eye[i]) + np.outer(eye[i], grads[a]))
+                    sig_b = lam * np.trace(eps_b) * eye + 2 * mu * eps_b
+                    Ke[a * d + i, b_ * d + j] = np.sum(sig_b * eps_a) * vol
+    return Ke
+
+
 def assemble_elasticity(verts, cells, lam, mu):
-    """Vector P1 elasticity stiffness, dofs blocked per node: dof = node*d + i."""
+    """Vector P1 elasticity stiffness, dofs blocked per node: dof = node*d + i.
+
+    Element matrices depend only on the element's edge vectors, so congruent
+    elements (all translates on a structured mesh) share one computation."""
     N = len(verts)
     d = verts.shape[1]
+    n_loc = (d + 1) * d
     rows, cols, vals = [], [], []
-    eye = np.eye(d)
+    elem_cache = {}
     for cell in cells:
         X = verts[cell]
-        J = (X[1:] - X[0]).T
-        detJ = np.linalg.det(J)
-        vol = abs(detJ) / math.factorial(d)
-        grads = np.vstack([-np.ones((1, d)), np.eye(d)]) @ np.linalg.inv(J)
-        for a in range(d + 1):
-            for b_ in range(d + 1):
-                for i in range(d):
-                    for j in range(d):
-                        # eps(phi_b e_j) : sigma(phi_a e_i)
-                        eps_b = 0.5 * (np.outer(grads[b_], eye[j]) + np.outer(eye[j], grads[b_]))
-                        eps_a = 0.5 * (np.outer(grads[a], eye[i]) + np.outer(eye[i], grads[a]))
-                        sig_b = lam * np.trace(eps_b) * eye + 2 * mu * eps_b
-                        v = np.sum(sig_b * eps_a) * vol
-                        rows.append(cell[a] * d + i)
-                        cols.append(cell[b_] * d + j)
-                        vals.append(v)
-    return sp.coo_matrix((vals, (rows, cols)), shape=(N * d, N * d)).tocsr()
+        key = (X[1:] - X[0]).tobytes()
+        Ke = elem_cache.get(key)
+        if Ke is None:
+            Ke = elem_cache[key] = _elasticity_element(X, lam, mu)
+        dofs = (cell[:, None] * d + np.arange(d)).ravel()
+        rows.append(np.repeat(dofs, n_loc))
+        cols.append(np.tile(dofs, n_loc))
+        vals.append(Ke.ravel())
+    return sp.coo_matrix((np.concatenate(vals),
+                          (np.concatenate(rows), np.concatenate(cols))),
+                         shape=(N * d, N * d)).tocsr()

@@ -9,10 +9,10 @@ advected-diffused Gaussian in 1D/2D.
 import numpy as np
 import pytest
 
-from pde_solver_tpu.mesh import interval_mesh, rectangle_mesh, flatten_values
-from pde_solver_tpu.models.advection import (AdvectionProblem,
+from pde_solver.mesh import interval_mesh, rectangle_mesh, flatten_values
+from pde_solver.models.advection import (AdvectionProblem,
                                              solve_advection_problem)
-from pde_solver_tpu.ops import assembly
+from pde_solver.ops import assembly
 
 
 def test_convection_stencil_annihilates_constants():
@@ -54,8 +54,8 @@ def test_imex_matches_dense_stepping():
         mesh, assembly.assemble_scalar_stencil(mesh, "mass"))
     C = assembly.stencil_to_dense(
         mesh, assembly.assemble_convection_stencil(mesh, v))
-    from pde_solver_tpu.models.advection import _initial_field
-    from pde_solver_tpu.ops.bc import DirichletBC
+    from pde_solver.models.advection import _initial_field
+    from pde_solver.ops.bc import DirichletBC
     bc = DirichletBC.from_masks([(mesh.boundary_mask(), 0.0)],
                                 mesh.node_shape)
     u = flatten_values(np.asarray(bc.apply_values(_initial_field(p))), 2)
@@ -91,8 +91,8 @@ def test_cnab2_matches_dense_stepping():
         mesh, assembly.assemble_scalar_stencil(mesh, "mass"))
     C = assembly.stencil_to_dense(
         mesh, assembly.assemble_convection_stencil(mesh, v))
-    from pde_solver_tpu.models.advection import _initial_field
-    from pde_solver_tpu.ops.bc import DirichletBC
+    from pde_solver.models.advection import _initial_field
+    from pde_solver.ops.bc import DirichletBC
     bc = DirichletBC.from_masks([(mesh.boundary_mask(), 0.0)],
                                 mesh.node_shape)
     u = flatten_values(np.asarray(bc.apply_values(_initial_field(p))), 2)
@@ -200,8 +200,8 @@ def test_stability_diagnostics_reported():
 # ----------------------------------------------------------------------
 
 def test_advection_api_artifacts(tmp_path):
-    from pde_solver_tpu import api
-    from pde_solver_tpu.fields import load_field
+    from pde_solver import api
+    from pde_solver.fields import load_field
     res = api.solve_advection_1D(length=2.0, nx=128, velocity=1.0,
                                  diffusivity=0.01, num_steps=40,
                                  data_dir=str(tmp_path))
@@ -228,10 +228,10 @@ def test_advection_api_artifacts(tmp_path):
 def test_advection_nl_routing_and_e2e():
     import asyncio
 
-    from pde_solver_tpu.agents.dispatcher_agent import DispatcherAgent
-    from pde_solver_tpu.agents.parser_agent import (PDEParserAgent,
+    from pde_solver.agents.dispatcher_agent import DispatcherAgent
+    from pde_solver.agents.parser_agent import (PDEParserAgent,
                                                     rule_based_parse)
-    from pde_solver_tpu.schema import PDEParameters
+    from pde_solver.schema import PDEParameters
 
     r = rule_based_parse(
         "simulate pollutant transport in a 2 m channel with flow speed "
@@ -270,7 +270,7 @@ def test_sharded_advection_matches_single_device():
     import jax
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from pde_solver_tpu.config import config_overrides
+    from pde_solver.config import config_overrides
 
     mesh = rectangle_mesh(15, 6, (0, 0), (2.0, 1.0))  # 16 x-planes / 8 dev
     p = AdvectionProblem(mesh=mesh, velocity=[0.9, 0.2], diffusivity=0.02,

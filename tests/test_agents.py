@@ -8,12 +8,12 @@ import os
 import numpy as np
 import pytest
 
-from pde_solver_tpu.agents.llm import FakeLLM, extract_json_block
-from pde_solver_tpu.agents.parser_agent import PDEParserAgent, rule_based_parse, normalize_params_dict
-from pde_solver_tpu.agents.dispatcher_agent import DispatcherAgent, normalize_geometry
-from pde_solver_tpu.agents.orchestrator import MultiAgentOrchestrator
-from pde_solver_tpu.agents.memory import ConversationMemory
-from pde_solver_tpu.schema import PDEParameters
+from pde_solver.agents.llm import FakeLLM, extract_json_block
+from pde_solver.agents.parser_agent import PDEParserAgent, rule_based_parse, normalize_params_dict
+from pde_solver.agents.dispatcher_agent import DispatcherAgent, normalize_geometry
+from pde_solver.agents.orchestrator import MultiAgentOrchestrator
+from pde_solver.agents.memory import ConversationMemory
+from pde_solver.schema import PDEParameters
 
 
 def run(coro):
@@ -295,10 +295,10 @@ def test_crank_nicolson_opt_in_via_notes():
     (VERDICT r1 item 7 — frozen api.py signatures stay reference-identical)."""
     import asyncio
 
-    from pde_solver_tpu.agents.dispatcher_agent import DispatcherAgent
-    from pde_solver_tpu.agents.parser_agent import rule_based_parse
-    from pde_solver_tpu.config import get_config
-    from pde_solver_tpu.schema import PDEParameters
+    from pde_solver.agents.dispatcher_agent import DispatcherAgent
+    from pde_solver.agents.parser_agent import rule_based_parse
+    from pde_solver.config import get_config
+    from pde_solver.schema import PDEParameters
 
     parsed = rule_based_parse(
         "solve heat in a 1 m x 1 m plate with crank-nicolson stepping, "
@@ -312,10 +312,10 @@ def test_crank_nicolson_opt_in_via_notes():
             if name.startswith("solve_"):
                 seen["theta"] = get_config().theta
                 seen["name"] = name
-                from pde_solver_tpu import api
+                from pde_solver import api
                 return api.solve_heat_2D(nx=6, ny=6, num_steps=2,
                                          data_dir="data").__dict__
-            from pde_solver_tpu import api
+            from pde_solver import api
             return getattr(api, name)(**args).__dict__
 
         async def tool_names(self):
@@ -630,7 +630,7 @@ def test_full_shape_query_is_not_followup():
     """r4 CLI battery bug: a complete query naming its own curvilinear
     geometry inherited pde_type=elasticity from a stale context because
     cylinder/sphere/radius were missing from the geometry keywords."""
-    from pde_solver_tpu.agents.orchestrator import MultiAgentOrchestrator
+    from pde_solver.agents.orchestrator import MultiAgentOrchestrator
     o = MultiAgentOrchestrator()
     o.memory.record_simulation({"pde_type": "elasticity", "dim": 3})
     assert not o._is_followup_question(
@@ -646,8 +646,8 @@ def test_full_shape_query_is_not_followup():
 def test_followup_merge_switches_back_to_heat():
     """Explicit 'heat' in a follow-up must override a previous elasticity
     pde_type (the merge previously only switched AWAY from heat)."""
-    from pde_solver_tpu.agents.orchestrator import MultiAgentOrchestrator
-    from pde_solver_tpu.schema import PDEParameters
+    from pde_solver.agents.orchestrator import MultiAgentOrchestrator
+    from pde_solver.schema import PDEParameters
     o = MultiAgentOrchestrator()
     prev = {"pde_type": "elasticity", "dim": 2,
             "domain_size": {"Lx": 1.0, "Ly": 1.0}}
@@ -739,8 +739,8 @@ def test_followup_merge_switches_to_elasticity_on_cue_words():
     'with' triggers the reference's keyword list) must still switch the
     pde_type: the parser's elasticity cues (gravity/clamped/beam...) count
     as the explicit mention, not just the literal word 'elasticity'."""
-    from pde_solver_tpu.agents.orchestrator import MultiAgentOrchestrator
-    from pde_solver_tpu.schema import PDEParameters
+    from pde_solver.agents.orchestrator import MultiAgentOrchestrator
+    from pde_solver.schema import PDEParameters
     o = MultiAgentOrchestrator()
     prev = {"pde_type": "heat", "dim": 1, "domain_size": {"length": 0.2}}
     new = PDEParameters(pde_type="elasticity", dim=3,
@@ -937,7 +937,7 @@ def test_mixed_routing_and_args():
 
 def test_mixed_nl_end_to_end():
     """NL convection query through parser → dispatcher → solver → artifact."""
-    from pde_solver_tpu.agents.dispatcher_agent import LocalToolSet
+    from pde_solver.agents.dispatcher_agent import LocalToolSet
 
     a = PDEParserAgent()
     d = DispatcherAgent()
@@ -1062,7 +1062,7 @@ def test_loaded_nl_end_to_end():
     res = run(d.dispatch(p))
     assert not res.get("error")
     # sigma = P/A = 10e3/0.02 = 5e5 Pa, constant along the bar
-    from pde_solver_tpu.fields import load_field
+    from pde_solver.fields import load_field
     f = load_field(res["data_file"])
     np.testing.assert_allclose(f.values_array()[0], 5.0e5, rtol=1e-6)
 

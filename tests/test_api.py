@@ -6,8 +6,8 @@ import inspect
 import numpy as np
 import pytest
 
-from pde_solver_tpu import api
-from pde_solver_tpu.fields import SolveResult, load_field
+from pde_solver import api
+from pde_solver.fields import SolveResult, load_field
 
 
 # Reference tool signatures (name → ordered (param, default)) transcribed from

@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from pde_solver_tpu.config import config_overrides
-from pde_solver_tpu.mesh import rectangle_mesh
-from pde_solver_tpu.ops import assembly, timestepping
-from pde_solver_tpu.ops.bc import DirichletBC, all_boundary
-from pde_solver_tpu.ops.timestepping import run_transient
+from pde_solver.config import config_overrides
+from pde_solver.mesh import rectangle_mesh
+from pde_solver.ops import assembly, timestepping
+from pde_solver.ops.bc import DirichletBC, all_boundary
+from pde_solver.ops.timestepping import run_transient
 
 
 def _problem():
@@ -137,7 +137,7 @@ def _newmark_problem():
 
 
 def test_newmark_checkpointed_run_matches_plain(tmp_path):
-    from pde_solver_tpu.ops.timestepping import run_newmark
+    from pde_solver.ops.timestepping import run_newmark
     mesh, K, M, bc, f, u0, v0 = _newmark_problem()
     ref = run_newmark(K, M, mesh, bc, f, u0, v0, dt=0.005, num_steps=10)
     with config_overrides(transient_checkpoint_every=4,
@@ -150,7 +150,7 @@ def test_newmark_checkpointed_run_matches_plain(tmp_path):
 
 
 def test_newmark_interrupted_run_resumes_bitwise(tmp_path, monkeypatch):
-    from pde_solver_tpu.ops.timestepping import run_newmark
+    from pde_solver.ops.timestepping import run_newmark
     mesh, K, M, bc, f, u0, v0 = _newmark_problem()
     ref = run_newmark(K, M, mesh, bc, f, u0, v0, dt=0.005, num_steps=12)
     monkeypatch.setattr(timestepping, "_CKPT_TEST_ABORT", 1)
@@ -177,7 +177,7 @@ def test_newmark_interrupted_run_resumes_bitwise(tmp_path, monkeypatch):
 def test_newmark_checkpoint_longer_target_continues(tmp_path, monkeypatch):
     """num_steps is excluded from the content key: a longer request resumes
     a shorter/killed run's chunks instead of recomputing them."""
-    from pde_solver_tpu.ops.timestepping import run_newmark
+    from pde_solver.ops.timestepping import run_newmark
     mesh, K, M, bc, f, u0, v0 = _newmark_problem()
     monkeypatch.setattr(timestepping, "_CKPT_TEST_ABORT", 1)
     with config_overrides(transient_checkpoint_every=4,
@@ -196,8 +196,8 @@ def test_newmark_checkpoint_longer_target_continues(tmp_path, monkeypatch):
 
 def test_wave_model_checkpoint_roundtrip(tmp_path):
     """The wave family inherits Newmark checkpointing through run_newmark."""
-    from pde_solver_tpu.mesh import interval_mesh
-    from pde_solver_tpu.models.wave import WaveProblem, solve_wave_problem
+    from pde_solver.mesh import interval_mesh
+    from pde_solver.models.wave import WaveProblem, solve_wave_problem
     mesh = interval_mesh(24, 0.0, 1.0)
     p = WaveProblem(mesh=mesh, wave_speed=2.0, initial_type="sine",
                     initial_wavenumber=np.pi, dt=0.004, num_steps=9)

@@ -5,12 +5,12 @@ non-convergence warning surfaced through the dispatcher summary
 import numpy as np
 import pytest
 
-from pde_solver_tpu.config import config_overrides, get_config
-from pde_solver_tpu.mesh import box_mesh
-from pde_solver_tpu.ops import assembly
-from pde_solver_tpu.ops.bc import DirichletBC, all_boundary
-from pde_solver_tpu.ops.linsolve import solve_stencil_system
-from pde_solver_tpu.schema import PDEParameters
+from pde_solver.config import config_overrides, get_config
+from pde_solver.mesh import box_mesh
+from pde_solver.ops import assembly
+from pde_solver.ops.bc import DirichletBC, all_boundary
+from pde_solver.ops.linsolve import solve_stencil_system
+from pde_solver.schema import PDEParameters
 
 
 def _system():
@@ -42,7 +42,7 @@ def test_converged_solve_reports_target():
 
 
 def _summary(converged):
-    from pde_solver_tpu.agents.dispatcher_agent import DispatcherAgent
+    from pde_solver.agents.dispatcher_agent import DispatcherAgent
 
     params = PDEParameters(pde_type="heat", dim=2)
     solver_result = {

@@ -9,11 +9,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pde_solver_tpu.mesh import StructuredMesh, interval_mesh, rectangle_mesh, box_mesh
-from pde_solver_tpu.ops import assembly
-from pde_solver_tpu.ops.stencil import StencilOperator
-from pde_solver_tpu.ops.bc import DirichletBC, all_boundary, face
-from pde_solver_tpu.ops.cg import pcg, solve_refined
+from pde_solver.mesh import StructuredMesh, interval_mesh, rectangle_mesh, box_mesh
+from pde_solver.ops import assembly
+from pde_solver.ops.stencil import StencilOperator
+from pde_solver.ops.bc import DirichletBC, all_boundary, face
+from pde_solver.ops.cg import pcg, solve_refined
 
 import reference_fem as ref
 

@@ -1,19 +1,18 @@
 """Constant-interior stencil operator (CSOp): bitwise equality with the
 dense per-node weight apply, and dense fallback for varying coefficients.
 
-CSOp (constant interior weights + exact thickness-2 boundary slabs) is the
-compressed weight representation for the Pallas flat-stencil kernels; it is
-deliberately NOT wired into the XLA solve paths (measured: no speedup under
-XLA fusion — see ops/linsolve.py CSOp docstring and BENCH_NOTES.md).
+CSOp (constant interior weights + exact thickness-2 boundary slabs) is a
+compressed weight representation; it is not wired into the solve paths
+(see the ops/linsolve.py CSOp docstring).
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from pde_solver_tpu.mesh import box_mesh
-from pde_solver_tpu.ops import assembly
-from pde_solver_tpu.ops.bc import DirichletBC, all_boundary
-from pde_solver_tpu.ops.linsolve import (_stencil_apply, make_cs_op,
+from pde_solver.mesh import box_mesh
+from pde_solver.ops import assembly
+from pde_solver.ops.bc import DirichletBC, all_boundary
+from pde_solver.ops.linsolve import (_stencil_apply, make_cs_op,
                                          prepare_system)
 
 
@@ -83,42 +82,12 @@ def test_cs_fallback_for_tiny_grids():
     assert make_cs_op(sysm.offsets, sysm.weights, 3, 1, jnp.float64) is None
 
 
-def test_df_cs_residual_matches_dense_pair():
-    """CSPairOp defect vs dense (hi, lo) pair defect: same weights, same
-    EFT accumulation order per region → identical to a few f32 ulps (the
-    ladder's fine-level upload rides on this equivalence)."""
-    from pde_solver_tpu.ops import df32
-
-    for make in (_scalar_system, _block_system):
-        mesh, sysm = make()
-        vdim = 1 if make is _scalar_system else 3
-        cs = df32.pack_df_weights_cs(sysm.weights, 3)
-        assert cs is not None
-        Whi, Wlo = df32.pack_df_weights(sysm.weights)
-        shape = mesh.node_shape + ((vdim,) if vdim > 1 else ())
-        rng = np.random.default_rng(7)
-        x64 = rng.standard_normal(shape)
-        b64 = rng.standard_normal(shape)
-        xh, xl = df32.df_from_f64(x64)
-        bh, bl = df32.df_from_f64(b64)
-        r_d, n_d = df32.df_stencil_residual(
-            sysm.offsets, Whi, Wlo, jnp.asarray(bh), jnp.asarray(bl),
-            jnp.asarray(xh), jnp.asarray(xl), 3, vdim)
-        r_c, n_c = df32.df_stencil_residual(
-            sysm.offsets, cs, None, jnp.asarray(bh), jnp.asarray(bl),
-            jnp.asarray(xh), jnp.asarray(xl), 3, vdim)
-        scale = float(np.max(np.abs(np.asarray(r_d)))) or 1.0
-        np.testing.assert_allclose(np.asarray(r_c), np.asarray(r_d),
-                                   rtol=0, atol=32 * np.finfo(np.float32).eps
-                                   * scale)
-
-
 def test_ladder_device_cs_expansion_is_bit_identical(monkeypatch):
     """The compact-upload ladder path (CS split shipped, dense pair
     expanded on device) must reproduce the directly-uploaded dense pair
     BITWISE — the solve programs consume the same arrays either way."""
     import jax.numpy as jnp
-    from pde_solver_tpu.ops import multigrid as mg
+    from pde_solver.ops import multigrid as mg
 
     mesh = box_mesh(16, 8, 8, (0, 0, 0), (1.0, 0.5, 0.5))
     K = assembly.assemble_elasticity_stencil(mesh, 1.21e11, 8.08e10)
@@ -144,38 +113,3 @@ def test_ladder_device_cs_expansion_is_bit_identical(monkeypatch):
                                       lad_dense.Wlo, lad_cs.Wlo):
         for a1, a2 in zip(Whi1 + Wlo1, Whi2 + Wlo2):
             np.testing.assert_array_equal(np.asarray(a1), np.asarray(a2))
-
-
-def test_flat_op_device_cs_pack_is_bit_identical():
-    """The fused device CS program must reproduce, bitwise: the host-packed
-    FlatStencilOperator weights, the bf16 device-cast copy, and the dense
-    (hi, lo) pair `pack_df_weights` would build (scalar and block)."""
-    import jax.numpy as jnp
-    from pde_solver_tpu.ops import df32
-    from pde_solver_tpu.ops import multigrid as mg
-    from pde_solver_tpu.ops.pallas_kernels import FlatStencilOperator
-
-    for make, vdim in ((_scalar_system, 1), (_block_system, 3)):
-        mesh, sysm = make()
-        w64 = [np.asarray(W, np.float64) for W in sysm.weights]
-        hi = [np.asarray(W, np.float32) for W in sysm.weights]
-        host_op = FlatStencilOperator(sysm.offsets, hi, mesh.node_shape,
-                                      vdim=vdim)
-        wc64, slabs64 = mg._cs_split_np(w64, 3)
-        wc_hi, wc_lo = df32.df_from_f64(wc64)
-        slab_pairs = [df32.df_from_f64(s) for s in slabs64]
-        cs_np = (wc_hi, wc_lo,
-                 [p[0] for p in slab_pairs], [p[1] for p in slab_pairs])
-        dev_op, dev_lo, dev_pairs = mg._flat_op_from_cs_dev(
-            sysm.offsets, cs_np, mesh.node_shape, 3, vdim, want_bf16=True)
-        np.testing.assert_array_equal(np.asarray(host_op.Wf),
-                                      np.asarray(dev_op.Wf))
-        ref_lo = host_op.as_weight_dtype(jnp.bfloat16)
-        np.testing.assert_array_equal(
-            np.asarray(ref_lo.Wf.astype(jnp.float32)),
-            np.asarray(dev_lo.Wf.astype(jnp.float32)))
-        Whi_ref, Wlo_ref = df32.pack_df_weights(w64)
-        for a_ref, a_dev in zip(Whi_ref + Wlo_ref,
-                                dev_pairs[0] + dev_pairs[1]):
-            np.testing.assert_array_equal(np.asarray(a_ref),
-                                          np.asarray(a_dev))

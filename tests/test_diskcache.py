@@ -5,20 +5,20 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pde_solver_tpu.config import config_overrides, get_config
-from pde_solver_tpu.mesh import box_mesh
-from pde_solver_tpu.ops import assembly
-from pde_solver_tpu.ops import linsolve
-from pde_solver_tpu.ops import multigrid as mg
-from pde_solver_tpu.ops.bc import DirichletBC, all_boundary
-from pde_solver_tpu.ops.linsolve import prepare_system
-from pde_solver_tpu.utils import diskcache
+from pde_solver.config import config_overrides, get_config
+from pde_solver.mesh import box_mesh
+from pde_solver.ops import assembly
+from pde_solver.ops import linsolve
+from pde_solver.ops import multigrid as mg
+from pde_solver.ops.bc import DirichletBC, all_boundary
+from pde_solver.ops.linsolve import prepare_system
+from pde_solver.utils import diskcache
 
 
 @pytest.fixture()
 def cache_dir(tmp_path, monkeypatch):
-    monkeypatch.setenv("PDE_TPU_CACHE_DIR", str(tmp_path))
-    monkeypatch.setenv("PDE_TPU_DISK_CACHE", "1")
+    monkeypatch.setenv("PDE_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("PDE_DISK_CACHE", "1")
     return tmp_path
 
 
@@ -36,7 +36,7 @@ def test_roundtrip_arrays_and_meta(cache_dir):
 
 
 def test_eviction_bounds_total_bytes(cache_dir, monkeypatch):
-    monkeypatch.setenv("PDE_TPU_CACHE_MAX_GB", str(1.0 / 1024))  # 1 MiB
+    monkeypatch.setenv("PDE_CACHE_MAX_GB", str(1.0 / 1024))  # 1 MiB
     import time
     for i in range(6):
         diskcache.store("e", i, {"a": np.zeros(400_00, dtype=np.float64)})
@@ -144,7 +144,7 @@ def test_hierarchy_cs_disk_rebuild_block(cache_dir):
     """Uniform elasticity levels store as constant-interior splits and
     rebuild via device-side expansion — bit-identical device weights, no
     host weight materialization."""
-    from pde_solver_tpu.models.elasticity import lame_parameters
+    from pde_solver.models.elasticity import lame_parameters
 
     mesh = box_mesh(16, 6, 6, (0, 0, 0), (1.0, 0.2, 0.2))
     lam, mu = lame_parameters(210e9, 0.3, "3d")

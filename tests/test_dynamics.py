@@ -8,17 +8,17 @@ fenics_mcp_server.py:1470-1892) — these tests pin down the new capability.
 import numpy as np
 import pytest
 
-from pde_solver_tpu.config import SolverConfig
-from pde_solver_tpu.mesh import box_mesh, interval_mesh, rectangle_mesh
-from pde_solver_tpu.models.elasticity import (
+from pde_solver.config import SolverConfig
+from pde_solver.mesh import box_mesh, interval_mesh, rectangle_mesh
+from pde_solver.models.elasticity import (
     assemble_vector_mass,
     lame_parameters,
     solve_elasticity_dynamic,
     solve_elasticity_nd,
 )
-from pde_solver_tpu.ops import assembly
-from pde_solver_tpu.ops.bc import DirichletBC
-from pde_solver_tpu.ops.timestepping import run_newmark, run_transient
+from pde_solver.ops import assembly
+from pde_solver.ops.bc import DirichletBC
+from pde_solver.ops.timestepping import run_newmark, run_transient
 
 CFG64 = SolverConfig(precision="f64", tol=1e-12)
 

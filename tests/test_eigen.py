@@ -9,10 +9,10 @@ Exact references: the unit-square Dirichlet Laplacian spectrum
 import numpy as np
 import pytest
 
-from pde_solver_tpu.mesh import box_mesh, interval_mesh, rectangle_mesh
-from pde_solver_tpu.ops import assembly
-from pde_solver_tpu.ops.bc import DirichletBC
-from pde_solver_tpu.ops.eigen import smallest_modes
+from pde_solver.mesh import box_mesh, interval_mesh, rectangle_mesh
+from pde_solver.ops import assembly
+from pde_solver.ops.bc import DirichletBC
+from pde_solver.ops.eigen import smallest_modes
 
 
 def test_laplacian_square_spectrum():
@@ -34,7 +34,7 @@ def test_laplacian_square_spectrum():
     from scipy.linalg import eigh
     A = assembly.stencil_to_dense(mesh, K)
     B = assembly.stencil_to_dense(mesh, M)
-    from pde_solver_tpu.mesh import flatten_values
+    from pde_solver.mesh import flatten_values
     free = flatten_values(np.asarray(bc.free_mask), 2).astype(bool)
     w = eigh(A[np.ix_(free, free)], B[np.ix_(free, free)],
              eigvals_only=True, subset_by_index=[0, 3])
@@ -71,8 +71,8 @@ def test_axial_bar_frequencies():
 def test_elasticity_modes_match_dense():
     # 3D clamped box, vector P1: subspace iteration must match dense eigh
     # of the same discrete pencil (small mesh)
-    from pde_solver_tpu.mesh import flatten_values
-    from pde_solver_tpu.models.elasticity import (assemble_vector_mass,
+    from pde_solver.mesh import flatten_values
+    from pde_solver.models.elasticity import (assemble_vector_mass,
                                                   lame_parameters)
     from scipy.linalg import eigh
 
@@ -103,8 +103,8 @@ def test_elasticity_modes_match_dense():
 # ----------------------------------------------------------------------
 
 def test_modal_api_artifact(tmp_path):
-    from pde_solver_tpu import api
-    from pde_solver_tpu.fields import load_field
+    from pde_solver import api
+    from pde_solver.fields import load_field
     res = api.solve_elasticity_3D_modal(nx=8, ny=4, nz=4, num_modes=3,
                                         data_dir=str(tmp_path))
     f = load_field(res.data_file)
@@ -123,9 +123,9 @@ def test_modal_api_artifact(tmp_path):
 def test_modal_nl_routing_and_e2e():
     import asyncio
 
-    from pde_solver_tpu.agents.dispatcher_agent import DispatcherAgent
-    from pde_solver_tpu.agents.parser_agent import rule_based_parse
-    from pde_solver_tpu.schema import PDEParameters
+    from pde_solver.agents.dispatcher_agent import DispatcherAgent
+    from pde_solver.agents.parser_agent import rule_based_parse
+    from pde_solver.schema import PDEParameters
 
     r = rule_based_parse(
         "compute the first 3 natural frequencies of a 1 m x 0.2 m x 0.2 m "
@@ -152,11 +152,11 @@ def test_modal_nl_routing_and_e2e():
 
 
 def test_modal_2d_api_and_routing(tmp_path):
-    from pde_solver_tpu import api
-    from pde_solver_tpu.agents.dispatcher_agent import DispatcherAgent
-    from pde_solver_tpu.agents.parser_agent import rule_based_parse
-    from pde_solver_tpu.fields import load_field
-    from pde_solver_tpu.schema import PDEParameters
+    from pde_solver import api
+    from pde_solver.agents.dispatcher_agent import DispatcherAgent
+    from pde_solver.agents.parser_agent import rule_based_parse
+    from pde_solver.fields import load_field
+    from pde_solver.schema import PDEParameters
 
     res = api.solve_elasticity_2D_modal(nx=12, ny=4, num_modes=2,
                                         data_dir=str(tmp_path))

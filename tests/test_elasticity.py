@@ -6,8 +6,8 @@ these cover the displacement extension against exact/beam-theory values."""
 def test_displacement_quantity_1d_exact():
     """quantity='displacement' (extension): u(x) = P x/(EA) exactly for
     the end-loaded fixed-free bar."""
-    from pde_solver_tpu import api
-    from pde_solver_tpu.fields import load_field
+    from pde_solver import api
+    from pde_solver.fields import load_field
     res = api.solve_elasticity_1D_loaded(L=1.0, nx=50, E=210e9, area=1e-4,
                                          end_load=10e3,
                                          quantity="displacement")
@@ -24,8 +24,8 @@ def test_displacement_quantity_2d_udl_beam_theory():
     deflection must sit within ~15% of the Euler-Bernoulli value
     w L^4/(8 E I) (shear deformation + P1 stiffness account for the
     gap at slenderness 10)."""
-    from pde_solver_tpu import api
-    from pde_solver_tpu.fields import load_field
+    from pde_solver import api
+    from pde_solver.fields import load_field
     w = 2000.0           # N/m line load
     Lx, Ly = 3.0, 0.3
     res = api.solve_elasticity_2D_static(Lx=Lx, Ly=Ly, nx=60, ny=8,

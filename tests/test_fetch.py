@@ -4,9 +4,9 @@ with the kept frames; full precision remains available on request."""
 
 import numpy as np
 
-from pde_solver_tpu.config import config_overrides
-from pde_solver_tpu.mesh import rectangle_mesh
-from pde_solver_tpu.models import heat
+from pde_solver.config import config_overrides
+from pde_solver.mesh import rectangle_mesh
+from pde_solver.models import heat
 
 
 def _problem(num_steps):

@@ -7,14 +7,14 @@ import sys
 
 import pytest
 
-from pde_solver_tpu.mcp.server import MCPServer, tool_descriptor, default_tools
+from pde_solver.mcp.server import MCPServer, tool_descriptor, default_tools
 
 
 def test_initialize_and_tools_list():
     srv = MCPServer()
     resp = srv.handle({"jsonrpc": "2.0", "id": 1, "method": "initialize",
                        "params": {"protocolVersion": "2024-11-05"}})
-    assert resp["result"]["serverInfo"]["name"] == "pde-solver-tpu"
+    assert resp["result"]["serverInfo"]["name"] == "pde-solver"
     assert srv.handle({"jsonrpc": "2.0", "method": "notifications/initialized"}) is None
     resp = srv.handle({"jsonrpc": "2.0", "id": 2, "method": "tools/list"})
     tools = resp["result"]["tools"]
@@ -78,7 +78,7 @@ def test_unknown_method_error():
 @pytest.mark.slow
 def test_stdio_subprocess_round_trip(tmp_path):
     """Spawn the real server.py subprocess and run solve+plot through MCP."""
-    from pde_solver_tpu.mcp.client import StdioMCPClient
+    from pde_solver.mcp.client import StdioMCPClient
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env_script = os.path.join(repo, "server.py")

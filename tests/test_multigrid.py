@@ -5,12 +5,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pde_solver_tpu.config import set_config, get_config
-from pde_solver_tpu.mesh import box_mesh, rectangle_mesh
-from pde_solver_tpu.ops import assembly
-from pde_solver_tpu.ops.bc import DirichletBC, all_boundary
-from pde_solver_tpu.ops import multigrid as mg
-from pde_solver_tpu.ops.linsolve import prepare_system, solve_stencil_system
+from pde_solver.config import set_config, get_config
+from pde_solver.mesh import box_mesh, rectangle_mesh
+from pde_solver.ops import assembly
+from pde_solver.ops.bc import DirichletBC, all_boundary
+from pde_solver.ops import multigrid as mg
+from pde_solver.ops.linsolve import prepare_system, solve_stencil_system
 
 
 def test_prolong_restrict_adjoint():
@@ -94,7 +94,7 @@ def test_mg_elasticity_block_scaling():
 
 
 def test_solve_facade_uses_mg_for_large_elasticity():
-    from pde_solver_tpu.models.elasticity import solve_elasticity_nd
+    from pde_solver.models.elasticity import solve_elasticity_nd
     set_config(mg_threshold=1000)
     try:
         mesh = box_mesh(16, 8, 8, (0, 0, 0), (1.0, 0.2, 0.2))
@@ -110,7 +110,7 @@ def test_solve_facade_uses_mg_for_large_elasticity():
 @pytest.mark.slow
 def test_nested_mixed_precision_facade():
     """Mixed-precision + MG → solve_nested path reaches f64-level accuracy."""
-    from pde_solver_tpu.models.elasticity import solve_elasticity_nd
+    from pde_solver.models.elasticity import solve_elasticity_nd
     set_config(precision="mixed", mg_threshold=1000)
     try:
         mesh = box_mesh(16, 8, 8, (0, 0, 0), (1.0, 0.2, 0.2))
@@ -154,9 +154,9 @@ def test_fcycle_df_variants_reach_deep_accuracy(variant):
     assert float(relres) < 1e-7, float(relres)
 
     # true f64 residual of the recombined solution against the host operator
-    from pde_solver_tpu.ops import df32
+    from pde_solver.ops import df32
     x_hat = df32.df_to_f64(np.asarray(x_hi), np.asarray(x_lo))
-    from pde_solver_tpu.ops.linsolve import np_stencil_apply
+    from pde_solver.ops.linsolve import np_stencil_apply
     W64 = {o: np.asarray(w, dtype=np.float64)
            for o, w in zip(sysm.offsets, sysm.weights)}
     r = sysm.b_hat - np_stencil_apply(W64, x_hat, mesh.dim, 3)
@@ -166,15 +166,15 @@ def test_fcycle_df_variants_reach_deep_accuracy(variant):
 
 
 def test_mg_smooth_env_override(monkeypatch):
-    """PDE_TPU_MG_SMOOTH overrides the Chebyshev degrees (the bench's
+    """PDE_MG_SMOOTH overrides the Chebyshev degrees (the bench's
     V(2,1) flagship cycle rides this knob) without touching the default."""
     import numpy as np
 
-    from pde_solver_tpu.mesh import rectangle_mesh
-    from pde_solver_tpu.ops import assembly
-    from pde_solver_tpu.ops import multigrid as mg
-    from pde_solver_tpu.ops.bc import DirichletBC
-    from pde_solver_tpu.ops.linsolve import prepare_system
+    from pde_solver.mesh import rectangle_mesh
+    from pde_solver.ops import assembly
+    from pde_solver.ops import multigrid as mg
+    from pde_solver.ops.bc import DirichletBC
+    from pde_solver.ops.linsolve import prepare_system
 
     mesh = rectangle_mesh(16, 16, (0, 0), (1.0, 1.0))
     K = assembly.assemble_scalar_stencil(mesh, "stiffness")
@@ -189,7 +189,7 @@ def test_mg_smooth_env_override(monkeypatch):
 
     h_default = mg.build_hierarchy(mesh, sysm, builder)
     assert (h_default.pre_smooth, h_default.post_smooth) == (2, 2)
-    monkeypatch.setenv("PDE_TPU_MG_SMOOTH", "2,1")
+    monkeypatch.setenv("PDE_MG_SMOOTH", "2,1")
     h_21 = mg.build_hierarchy(mesh, sysm, builder)
     assert (h_21.pre_smooth, h_21.post_smooth) == (2, 1)
     # the asymmetric cycle must still solve the system

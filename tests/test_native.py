@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from pde_solver_tpu import native
-from pde_solver_tpu.mesh import box_mesh
-from pde_solver_tpu.ops import assembly
-from pde_solver_tpu.ops.bc import DirichletBC
-from pde_solver_tpu.ops.linsolve import np_stencil_apply, prepare_system
+from pde_solver import native
+from pde_solver.mesh import box_mesh
+from pde_solver.ops import assembly
+from pde_solver.ops.bc import DirichletBC
+from pde_solver.ops.linsolve import np_stencil_apply, prepare_system
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library unavailable")

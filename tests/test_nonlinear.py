@@ -8,9 +8,9 @@ the steady 1D profile is the inverted quadratic of a straight line in θ.
 import numpy as np
 import pytest
 
-from pde_solver_tpu.mesh import interval_mesh, rectangle_mesh
-from pde_solver_tpu.models import heat
-from pde_solver_tpu.models.heat import HeatProblem, solve_heat_nonlinear
+from pde_solver.mesh import interval_mesh, rectangle_mesh
+from pde_solver.models import heat
+from pde_solver.models.heat import HeatProblem, solve_heat_nonlinear
 
 
 def _kirchhoff_T(theta, kappa0, beta):
@@ -75,8 +75,8 @@ def test_negative_kappa_guard():
 # ----------------------------------------------------------------------
 
 def test_nonlinear_api_artifact(tmp_path):
-    from pde_solver_tpu import api
-    from pde_solver_tpu.fields import load_field
+    from pde_solver import api
+    from pde_solver.fields import load_field
     res = api.solve_heat_1D_nonlinear(length=1.0, nx=64, kappa0=2.0,
                                       beta=0.01, T_left=100.0, T_right=0.0,
                                       data_dir=str(tmp_path))
@@ -98,9 +98,9 @@ def test_nonlinear_api_artifact(tmp_path):
 def test_nonlinear_nl_routing_and_e2e():
     import asyncio
 
-    from pde_solver_tpu.agents.dispatcher_agent import DispatcherAgent
-    from pde_solver_tpu.agents.parser_agent import rule_based_parse
-    from pde_solver_tpu.schema import PDEParameters
+    from pde_solver.agents.dispatcher_agent import DispatcherAgent
+    from pde_solver.agents.parser_agent import rule_based_parse
+    from pde_solver.schema import PDEParameters
 
     r = rule_based_parse(
         "steady heat in a 1 m rod whose conductivity increases with "

@@ -1,17 +1,22 @@
 """Multi-device tests on the fake 8-device CPU mesh (SURVEY.md §4 point 3):
 sharded halo-exchange SpMV and psum-CG must match the single-device path."""
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pde_solver_tpu.mesh import box_mesh, rectangle_mesh
-from pde_solver_tpu.ops import assembly
-from pde_solver_tpu.ops.bc import DirichletBC, all_boundary
-from pde_solver_tpu.ops.stencil import StencilOperator
-from pde_solver_tpu.ops.cg import pcg
-from pde_solver_tpu.parallel import shard as psh
+from pde_solver.mesh import box_mesh, rectangle_mesh
+from pde_solver.ops import assembly
+from pde_solver.ops.bc import DirichletBC, all_boundary
+from pde_solver.ops.stencil import StencilOperator
+from pde_solver.ops.cg import pcg
+from pde_solver.parallel import shard as psh
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 needs_multidevice = pytest.mark.skipif(
@@ -84,8 +89,8 @@ def test_sharded_elasticity_matches_single_device():
     """Flagship path: vdim=3 block-scaled CG, NON-divisible axis-0 extent
     (14 node planes over 8 shards → identity-row padding), must match the
     single-device scaled CG to 1e-9 (VERDICT r1 item 4)."""
-    from pde_solver_tpu.models.elasticity import lame_parameters
-    from pde_solver_tpu.ops.linsolve import _jit_cg
+    from pde_solver.models.elasticity import lame_parameters
+    from pde_solver.ops.linsolve import _jit_cg
 
     lam, mu = lame_parameters(210e9, 0.3, "3d")
     mesh = box_mesh(13, 5, 5, (0, 0, 0), (1.0, 0.5, 0.5))
@@ -110,8 +115,8 @@ def test_sharded_elasticity_matches_single_device():
 def test_solve_stencil_system_sharded_config_route():
     """SolverConfig.shard_devices routes api-level solves through the
     domain-decomposed CG and still matches the closed-form answer."""
-    from pde_solver_tpu.config import get_config, set_config
-    from pde_solver_tpu.ops.linsolve import solve_stencil_system
+    from pde_solver.config import get_config, set_config
+    from pde_solver.ops.linsolve import solve_stencil_system
 
     mesh = rectangle_mesh(13, 6, (0.0, 0.0), (1.0, 1.0))  # 14 planes / 8 dev
     K = assembly.assemble_scalar_stencil(mesh, "stiffness")
@@ -137,8 +142,8 @@ def test_sharded_mg_composes_above_threshold():
     """shard_devices>1 on an MG-eligible solve must run SHARDED MG-PCG —
     round 2 silently dropped the shard request whenever MG engaged
     (ops/linsolve.py routed only `if ... hierarchy is None`)."""
-    from pde_solver_tpu.config import config_overrides
-    from pde_solver_tpu.ops.linsolve import solve_stencil_system
+    from pde_solver.config import config_overrides
+    from pde_solver.ops.linsolve import solve_stencil_system
 
     mesh = box_mesh(40, 40, 40, (0, 0, 0), (1.0, 1.0, 1.0))  # 68,921 DOF
     K = assembly.assemble_scalar_stencil(mesh, "stiffness")
@@ -167,10 +172,10 @@ def test_sharded_mg_composes_above_threshold():
 
 @needs_multidevice
 def test_sharded_mg_mixed_precision_route():
-    """precision=mixed + shard_devices>1 + MG: sharded f32 V-cycle inner
-    solves inside the host f64 refinement loop."""
-    from pde_solver_tpu.config import config_overrides
-    from pde_solver_tpu.ops.linsolve import solve_stencil_system
+    """precision=mixed + shard_devices>1 + MG runs sharded MG-PCG in float64
+    (sharded MG has no double-f32 ladder) and meets the f64 tolerance."""
+    from pde_solver.config import config_overrides
+    from pde_solver.ops.linsolve import solve_stencil_system
 
     mesh = box_mesh(40, 40, 40, (0, 0, 0), (1.0, 1.0, 1.0))
     K = assembly.assemble_scalar_stencil(mesh, "stiffness")
@@ -195,12 +200,26 @@ def test_sharded_mg_mixed_precision_route():
 
 
 @needs_multidevice
+@pytest.mark.parametrize("shard", [0, 4])
+def test_f32_refinement_converges_sharded_and_not(shard):
+    """benchmarks/f32_refinement.py at a size where float32 refinement does
+    not stall, on one device and sharded over four: each round cuts the
+    true residual a hundredfold and 5 rounds reach 1e-9."""
+    from benchmarks.f32_refinement import refine
+
+    hist = refine((32, 8, 8), shard=shard, rounds=5, log=lambda m: None)
+    relres = [h[0] for h in hist[1:]]
+    assert all(b < 0.01 * a for a, b in zip(relres[:3], relres[1:4])), relres
+    assert relres[-1] <= 1e-9, relres
+
+
+@needs_multidevice
 def test_sharded_transient_scan_matches_single_device():
     """shard_devices>1 routes run_transient through the shard_mapped
     θ-scheme scan (VERDICT r2 item 4: transient scans previously always ran
     single-device)."""
-    from pde_solver_tpu.config import config_overrides
-    from pde_solver_tpu.models import heat
+    from pde_solver.config import config_overrides
+    from pde_solver.models import heat
 
     mesh = rectangle_mesh(21, 8, (0.0, 0.0), (1.0, 1.0))  # 22 rows / 8 dev
     p = heat.HeatProblem(
@@ -220,10 +239,10 @@ def test_sharded_transient_scan_vector_block():
     """Sharded Newmark-free path: the θ-scan with block (vdim>1) scaling —
     elastodynamics-style systems shard too (block-Cholesky to_hat/from_hat
     inside shard_map)."""
-    from pde_solver_tpu.config import config_overrides
-    from pde_solver_tpu.ops.timestepping import run_transient
-    from pde_solver_tpu.models.elasticity import lame_parameters
-    from pde_solver_tpu.models.elasticity import assemble_vector_mass
+    from pde_solver.config import config_overrides
+    from pde_solver.ops.timestepping import run_transient
+    from pde_solver.models.elasticity import lame_parameters
+    from pde_solver.models.elasticity import assemble_vector_mass
 
     mesh = rectangle_mesh(13, 6, (0.0, 0.0), (1.0, 1.0))
     lam, mu = lame_parameters(1e6, 0.3, "plane_stress")
@@ -245,8 +264,8 @@ def test_sharded_transient_scan_vector_block():
 def test_sharded_cnab2_advection_matches_single_device():
     """CNAB2's AB2-history carry composes with the sharded θ-scan: the
     separate convection operand rides the same halo-exchange applies."""
-    from pde_solver_tpu.config import config_overrides
-    from pde_solver_tpu.models.advection import (AdvectionProblem,
+    from pde_solver.config import config_overrides
+    from pde_solver.models.advection import (AdvectionProblem,
                                                  solve_advection_problem)
 
     mesh = rectangle_mesh(21, 8, (0.0, 0.0), (1.0, 1.0))
@@ -267,8 +286,8 @@ def test_sharded_time_mod_matches_single_device():
     """Sinusoidal Dirichlet + source driving inside the sharded scan (was
     rejected with ValueError before round 4's continuation): parity with
     the single-device tmod scan."""
-    from pde_solver_tpu.config import config_overrides
-    from pde_solver_tpu.models import heat
+    from pde_solver.config import config_overrides
+    from pde_solver.models import heat
 
     mesh = rectangle_mesh(21, 8, (0.0, 0.0), (1.0, 1.0))
     p = heat.HeatProblem(
@@ -295,10 +314,10 @@ def test_shard_hierarchy_cache_never_aliases_stale_solver():
     for a DIFFERENT hierarchy that happens to share id(h) with a collected
     one.  Contract: keyless entries pin the hierarchy object and gate reuse
     on identity; content-keyed entries reuse across equal-content rebuilds."""
-    from pde_solver_tpu.ops import multigrid as mg
-    from pde_solver_tpu.ops.linsolve import prepare_system
-    from pde_solver_tpu.parallel import shard_mg
-    from pde_solver_tpu.parallel.shard import device_mesh
+    from pde_solver.ops import multigrid as mg
+    from pde_solver.ops.linsolve import prepare_system
+    from pde_solver.parallel import shard_mg
+    from pde_solver.parallel.shard import device_mesh
 
     def build(n):
         mesh = box_mesh(n, n, n, (0, 0, 0), (1.0, 1.0, 1.0))
@@ -314,7 +333,7 @@ def test_shard_hierarchy_cache_never_aliases_stale_solver():
                                            mc.node_shape))
 
         return mg.build_hierarchy(mesh, sysm, builder, vdim=1,
-                                  dtype=jnp.float32, use_pallas=False)
+                                  dtype=jnp.float32)
 
     dev = device_mesh(8)
     shard_mg._SOLVER_CACHE.clear()
@@ -347,9 +366,9 @@ def test_sharded_newmark_matches_single_device():
     """shard_devices>1 routes run_newmark through the shard_mapped Newmark
     scan (VERDICT r3 item 5: vector transient sharding must be witnessed);
     trajectories must match the single-device scan."""
-    from pde_solver_tpu.config import config_overrides
-    from pde_solver_tpu.ops.timestepping import run_newmark
-    from pde_solver_tpu.models.elasticity import (assemble_vector_mass,
+    from pde_solver.config import config_overrides
+    from pde_solver.ops.timestepping import run_newmark
+    from pde_solver.models.elasticity import (assemble_vector_mass,
                                                   lame_parameters)
 
     mesh = rectangle_mesh(13, 6, (0.0, 0.0), (1.0, 1.0))
@@ -415,7 +434,7 @@ def test_local_stencil_apply_2d_mesh_matches_dense():
 def test_sharded_cg_2d_mesh_matches_single_device():
     """ShardedScaledCG over a 4×2 mesh, NON-divisible extents on both
     decomposed axes (identity-row padding on each), vdim=1."""
-    from pde_solver_tpu.ops.linsolve import _jit_cg, prepare_system
+    from pde_solver.ops.linsolve import _jit_cg, prepare_system
 
     mesh = rectangle_mesh(13, 8, (0.0, 0.0), (1.0, 1.0))  # nodes (14, 9)
     K = assembly.assemble_scalar_stencil(mesh, "stiffness")
@@ -441,8 +460,8 @@ def test_sharded_cg_2d_mesh_matches_single_device():
 def test_sharded_elasticity_2d_mesh_vdim3():
     """The flagship shape class on a 2-D device mesh: vdim=3 block-scaled
     CG, 4×2 decomposition of grid axes 0/1, non-divisible both ways."""
-    from pde_solver_tpu.models.elasticity import lame_parameters
-    from pde_solver_tpu.ops.linsolve import _jit_cg, prepare_system
+    from pde_solver.models.elasticity import lame_parameters
+    from pde_solver.ops.linsolve import _jit_cg, prepare_system
 
     lam, mu = lame_parameters(210e9, 0.3, "3d")
     mesh = box_mesh(9, 5, 4, (0, 0, 0), (1.0, 0.5, 0.5))  # nodes (10, 6, 5)
@@ -469,8 +488,8 @@ def test_sharded_elasticity_2d_mesh_vdim3():
 def test_shard_grid_config_route():
     """SolverConfig.shard_grid="4,2" routes solve_stencil_system through the
     2-D decomposed CG and still matches the closed-form answer."""
-    from pde_solver_tpu.config import config_overrides
-    from pde_solver_tpu.ops.linsolve import solve_stencil_system
+    from pde_solver.config import config_overrides
+    from pde_solver.ops.linsolve import solve_stencil_system
 
     mesh = rectangle_mesh(13, 9, (0.0, 0.0), (1.0, 1.0))
     K = assembly.assemble_scalar_stencil(mesh, "stiffness")
@@ -490,7 +509,7 @@ def test_shard_grid_config_route():
 def test_shard_grid_falls_back_when_unfactorable():
     """A shard_grid that exceeds the device count resolves to None (1-D
     split) instead of crashing."""
-    from pde_solver_tpu.config import config_overrides, get_config
+    from pde_solver.config import config_overrides, get_config
 
     with config_overrides(shard_grid="16,4"):
         assert get_config().resolved_shard_grid() is None

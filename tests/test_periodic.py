@@ -10,10 +10,10 @@ parity, and radial (curvilinear) driving through the mixed tool.
 import numpy as np
 import pytest
 
-from pde_solver_tpu.mesh import flatten_values, interval_mesh, rectangle_mesh
-from pde_solver_tpu.models import heat
-from pde_solver_tpu.models.heat import HeatProblem
-from pde_solver_tpu.ops import assembly
+from pde_solver.mesh import flatten_values, interval_mesh, rectangle_mesh
+from pde_solver.models import heat
+from pde_solver.models.heat import HeatProblem
+from pde_solver.ops import assembly
 
 
 def test_periodic_matches_dense_stepping():
@@ -36,7 +36,7 @@ def test_periodic_matches_dense_stepping():
     M = assembly.stencil_to_dense(
         mesh, assembly.assemble_scalar_stencil(mesh, "mass"))
     load = flatten_values(assembly.assemble_load(mesh), 2)
-    from pde_solver_tpu.ops.bc import DirichletBC
+    from pde_solver.ops.bc import DirichletBC
     bc = DirichletBC.from_masks([(left, 20.0)], mesh.node_shape)
     free = flatten_values(np.asarray(bc.free_mask), 2).astype(bool)
     gflat = flatten_values(np.asarray(bc.values), 2)
@@ -100,7 +100,7 @@ def test_periodic_checkpoint_resume_phase(tmp_path):
     """Chunked (checkpointed) stepping must agree with the plain scan —
     the chunks enter the scan at nonzero step offsets, so this pins the
     step0/phase plumbing."""
-    from pde_solver_tpu.config import config_overrides
+    from pde_solver.config import config_overrides
 
     mesh = interval_mesh(24, 0.0, 1.0)
     common = dict(mesh=mesh, diffusivity=1.0, T_initial=0.0,
@@ -124,7 +124,7 @@ def test_periodic_sharded_supported():
     import jax
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from pde_solver_tpu.config import config_overrides
+    from pde_solver.config import config_overrides
 
     mesh = interval_mesh(15, 0.0, 1.0)
     p = HeatProblem(mesh=mesh, T_initial=0.0, dt=0.01, num_steps=3,
@@ -143,8 +143,8 @@ def test_periodic_sharded_supported():
 # ----------------------------------------------------------------------
 
 def test_mixed_tool_accepts_periodic_dirichlet(tmp_path):
-    from pde_solver_tpu import api
-    from pde_solver_tpu.fields import load_field
+    from pde_solver import api
+    from pde_solver.fields import load_field
     period = 0.5
     res = api.solve_heat_1D_mixed(
         length=1.0, nx=64, dt=period / 50, num_steps=100,
@@ -165,9 +165,9 @@ def test_mixed_tool_accepts_periodic_dirichlet(tmp_path):
 def test_rule_parse_periodic_boundary_and_e2e():
     import asyncio
 
-    from pde_solver_tpu.agents.dispatcher_agent import DispatcherAgent
-    from pde_solver_tpu.agents.parser_agent import rule_based_parse
-    from pde_solver_tpu.schema import PDEParameters
+    from pde_solver.agents.dispatcher_agent import DispatcherAgent
+    from pde_solver.agents.parser_agent import rule_based_parse
+    from pde_solver.schema import PDEParameters
 
     r = rule_based_parse(
         "1D heat in a 0.5 m concrete wall, right face at 20 C, the left "
@@ -200,8 +200,8 @@ def test_radial_mixed_periodic_dirichlet(tmp_path):
     node must trace the prescribed sinusoid exactly (Dirichlet), and the
     interior response must lag and attenuate (thermal-wave physics carried
     through the r-weighted assembly)."""
-    from pde_solver_tpu import api
-    from pde_solver_tpu.fields import load_field
+    from pde_solver import api
+    from pde_solver.fields import load_field
 
     period, amp, base = 0.5, 5.0, 20.0
     res = api.solve_heat_radial_mixed(

@@ -10,10 +10,10 @@ symmetry/SPD checks and a dense backward-Euler transient parity run.
 import numpy as np
 import pytest
 
-from pde_solver_tpu.mesh import box_mesh, interval_mesh, rectangle_mesh
-from pde_solver_tpu.models import heat
-from pde_solver_tpu.models.heat import HeatProblem
-from pde_solver_tpu.ops import assembly, surface
+from pde_solver.mesh import box_mesh, interval_mesh, rectangle_mesh
+from pde_solver.models import heat
+from pde_solver.models.heat import HeatProblem
+from pde_solver.ops import assembly, surface
 
 
 # ----------------------------------------------------------------------
@@ -193,7 +193,7 @@ def test_transient_robin_matches_dense_backward_euler():
     A = assembly.stencil_to_dense(mesh, K)
     M = assembly.stencil_to_dense(
         mesh, assembly.assemble_scalar_stencil(mesh, "mass"))
-    from pde_solver_tpu.mesh import flatten_values
+    from pde_solver.mesh import flatten_values
     u = np.full(mesh.num_nodes, 90.0)
     bf = flatten_values(b, 2)
     lhs = M + dt * A
@@ -210,8 +210,8 @@ def test_transient_robin_matches_dense_backward_euler():
 # ----------------------------------------------------------------------
 
 def test_radial_mixed_sphere_dirichlet_robin_analytic():
-    from pde_solver_tpu import api
-    from pde_solver_tpu.fields import load_field
+    from pde_solver import api
+    from pde_solver.fields import load_field
     kappa, r1, r2, T0, h, t_inf = 2.0, 0.5, 1.5, 300.0, 8.0, 20.0
     # u = A + B/r:  A + B/r1 = T0;  kappa B / r2^2 = h (A + B/r2 - t_inf)
     M = np.array([[1.0, 1.0 / r1],
@@ -230,8 +230,8 @@ def test_radial_mixed_sphere_dirichlet_robin_analytic():
 
 
 def test_radial_mixed_solid_cylinder_quench_transient():
-    from pde_solver_tpu import api
-    from pde_solver_tpu.fields import load_field
+    from pde_solver import api
+    from pde_solver.fields import load_field
     res = api.solve_heat_radial_mixed(
         kind="cylinder", r_inner=0.0, r_outer=1.0, nr=64, diffusivity=1.0,
         T_initial=400.0, dt=0.02, num_steps=10,
@@ -255,7 +255,7 @@ def test_sharded_solve_composes_with_robin():
     import pytest as _pytest
     if len(jax.devices()) < 8:
         _pytest.skip("needs 8 virtual devices")
-    from pde_solver_tpu.config import config_overrides
+    from pde_solver.config import config_overrides
 
     kappa, L, T0, h, t_inf = 1.2, 2.0, 60.0, 4.0, 10.0
     mesh = rectangle_mesh(13, 6, (0, 0), (L, 1.0))  # 14 x-planes / 8 dev

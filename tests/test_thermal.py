@@ -14,10 +14,10 @@ shipped untested).  Covers the verified identities:
 import numpy as np
 import pytest
 
-from pde_solver_tpu.mesh import box_mesh, interval_mesh, rectangle_mesh
-from pde_solver_tpu.ops import assembly
-from pde_solver_tpu.ops.elements import subelem_geometry
-from pde_solver_tpu.models.elasticity import (
+from pde_solver.mesh import box_mesh, interval_mesh, rectangle_mesh
+from pde_solver.ops import assembly
+from pde_solver.ops.elements import subelem_geometry
+from pde_solver.models.elasticity import (
     _vm_from_gradients, solve_bar_1d, solve_elasticity_nd,
     thermal_stress_coefficient)
 
@@ -112,7 +112,7 @@ def test_vm_iso_invariant_in_3d_only():
 def test_vm_2d_regression_vs_independent(mode):
     """2D vm with iso vs an independent in-test reimplementation of
     σ = λ tr(ε) I + 2με − iso·I with the 1/3·tr deviator convention."""
-    from pde_solver_tpu.models.elasticity import lame_parameters
+    from pde_solver.models.elasticity import lame_parameters
 
     rng = np.random.default_rng(11)
     lam, mu = lame_parameters(210e9, 0.3, mode)
@@ -142,8 +142,8 @@ def test_clamp_both_nd_thermal_through_mg():
     plate center the analytic constrained state holds: ε_xx = 0, σ_yy = 0
     → σ_xx = −βΔT·2μ/(λ+2μ), vm = sqrt(5/6)·|σ_xx| under the 2×2
     convention (end effects decay over ~one plate width)."""
-    from pde_solver_tpu.config import config_overrides
-    from pde_solver_tpu.models.elasticity import lame_parameters
+    from pde_solver.config import config_overrides
+    from pde_solver.models.elasticity import lame_parameters
 
     E, nu, alpha, dT = 210e9, 0.3, 1.2e-5, 50.0
     # long plate: the center is ~4 widths from either clamp, so the 1-D

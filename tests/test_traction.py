@@ -11,8 +11,8 @@ Key exactness facts used:
 import numpy as np
 import pytest
 
-from pde_solver_tpu import api
-from pde_solver_tpu.fields import load_field
+from pde_solver import api
+from pde_solver.fields import load_field
 
 
 def test_bar_end_load_exact_stress():

@@ -1,6 +1,6 @@
 """Streamlit UI smoke test (VERDICT r3 item 8) — the one reference component
 with no coverage: drive ``app.run_streamlit`` with a FAKE streamlit module and
-a stub orchestrator (no network, no TPU, streamlit not even installed) and
+a stub orchestrator (no network, no accelerator, streamlit not even installed) and
 assert the reference app behaviors (ref app.py:79-264): chat history append,
 embedded plot HTML, and the two download-button payloads.
 """

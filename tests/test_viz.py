@@ -6,9 +6,9 @@ import re
 import numpy as np
 import pytest
 
-from pde_solver_tpu import api
-from pde_solver_tpu.viz.resample import FieldResampler, detect_structured_grid
-from pde_solver_tpu.viz.plots import plot_time_series_field, plot_time_series_field_from_file
+from pde_solver import api
+from pde_solver.viz.resample import FieldResampler, detect_structured_grid
+from pde_solver.viz.plots import plot_time_series_field, plot_time_series_field_from_file
 
 
 def test_detect_structured_grid():
@@ -134,7 +134,7 @@ def test_axisymmetric_2d_fields_plot_without_qhull_error(tmp_path):
     the plotter must pick the SPANNING coordinate columns (the reference
     feeds columns (0,1) to griddata and dies with a QhullError on every
     axisymmetric field; fenics_mcp_server.py:3781)."""
-    from pde_solver_tpu import api
+    from pde_solver import api
 
     r = api.solve_heat_2D_cylindrical(r_inner=0.05, r_outer=0.07,
                                       z_length=0.07, nr=8, nz=8, steady=True,

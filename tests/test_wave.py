@@ -11,12 +11,12 @@ import os
 import numpy as np
 import pytest
 
-from pde_solver_tpu import api
-from pde_solver_tpu.config import SolverConfig
-from pde_solver_tpu.fields import load_field
-from pde_solver_tpu.mesh import interval_mesh, rectangle_mesh
-from pde_solver_tpu.models.wave import WaveProblem, solve_wave_problem
-from pde_solver_tpu.ops import assembly
+from pde_solver import api
+from pde_solver.config import SolverConfig
+from pde_solver.fields import load_field
+from pde_solver.mesh import interval_mesh, rectangle_mesh
+from pde_solver.models.wave import WaveProblem, solve_wave_problem
+from pde_solver.ops import assembly
 
 CFG64 = SolverConfig(precision="f64", tol=1e-12)
 
@@ -100,8 +100,8 @@ def test_wave_energy_conservation():
     mesh = interval_mesh(32, 0.0, 1.0)
     p = WaveProblem(mesh=mesh, wave_speed=c, initial_type="sine",
                     initial_wavenumber=np.pi, dt=0.004, num_steps=150)
-    from pde_solver_tpu.ops.timestepping import run_newmark
-    from pde_solver_tpu.ops.bc import DirichletBC
+    from pde_solver.ops.timestepping import run_newmark
+    from pde_solver.ops.bc import DirichletBC
 
     K = assembly.assemble_scalar_stencil(mesh, "stiffness")
     K = {o: c * c * W for o, W in K.items()}
@@ -170,7 +170,7 @@ def test_wave_nl_query_end_to_end(tmp_path, monkeypatch):
     """NL wave query → parser → dispatcher → wave solver → HTML plot."""
     monkeypatch.chdir(tmp_path)
     import asyncio
-    from pde_solver_tpu.agents.orchestrator import MultiAgentOrchestrator
+    from pde_solver.agents.orchestrator import MultiAgentOrchestrator
     o = MultiAgentOrchestrator()
     res = asyncio.new_event_loop().run_until_complete(o.solve(
         "simulate a wave on a 2 m string with wave speed 4, nx 20, "
@@ -187,7 +187,7 @@ def test_sharded_wave_matches_single_device():
     """shard_devices>1 routes the wave model through the shard_mapped
     Newmark scan (scalar vdim=1 leg of the same machinery the sharded
     elastodynamics test witnesses)."""
-    from pde_solver_tpu.config import config_overrides
+    from pde_solver.config import config_overrides
 
     mesh = rectangle_mesh(13, 9, (0.0, 0.0), (1.0, 1.0))
     p = WaveProblem(mesh=mesh, wave_speed=2.0, initial_type="sine",
